@@ -1,14 +1,14 @@
-"""praline-tpu: a TPU-native multiple sequence alignment engine.
+"""praline-tpu: a batched multiple sequence alignment engine on JAX.
 
-A from-scratch JAX/Pallas framework with the capabilities of ibivu/PRALINE
+A from-scratch JAX framework with the capabilities of ibivu/PRALINE
 (progressive protein/DNA MSA: affine/gap-series pairwise DP, profile-profile
 scoring, preprofiles, guide trees, progressive merging).  See SURVEY.md for
 the structural analysis and the pinned parity semantics.
 
 Import layering: this root package only pulls in numpy-based layers (types,
-io, oracle).  JAX/TPU code lives under ``praline_tpu.kernels``,
+io, oracle).  JAX device code lives under ``praline_tpu.kernels``,
 ``praline_tpu.dist`` and ``praline_tpu.msa`` and is imported lazily by the
-high-level API so host-only tooling never pays TPU-init cost.
+high-level API so host-only tooling never pays device-init cost.
 """
 
 from .io import (

@@ -3,11 +3,11 @@
 Shards a padded batch of pairwise problems over the mesh's ``pairs`` axis
 with ``shard_map``: every device runs score-skew + wavefront on its shard,
 then scalar terminals (score/length/terminal cell) are combined with an
-``all_gather`` over ICI so every device — and the host — sees the full
-distance tile.  Traceback bits stay sharded (they are O(L^2) per problem;
+``all_gather`` so every device — and the host — sees the full distance
+tile.  Traceback bits stay sharded (they are O(L^2) per problem;
 only the host slices them per pair).
 
-This is the TPU replacement for the reference's serial all-pairs loop
+This is the device replacement for the reference's serial all-pairs loop
 (SURVEY.md C15) at the multi-chip level; kernels.batch handles the
 single-chip batching underneath.
 """
@@ -19,12 +19,7 @@ import functools
 import jax
 from jax.sharding import PartitionSpec as P
 
-try:  # jax >= 0.6 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # type: ignore[attr-defined]
-
-    shard_map = _shard_map_mod
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore[no-redef]
+from jax import shard_map
 
 from .mesh import PAIR_AXIS
 from ..kernels.scan import wavefront_dp
@@ -99,19 +94,17 @@ def _register_mesh(mesh):
 
 
 @functools.lru_cache(maxsize=64)
-def _build_indexed(mesh_key, gap_series, mode, traceback, backend, qd,
-                   replay, onehot_x, onehot_y, A, mxp="highest"):
-    """Sharded production dispatch: the SAME indexed gather + fused-producer
-    + wavefront(+replay) body as the single-device path
+def _build_indexed(mesh_key, gap_series, mode, traceback, backend,
+                   replay, onehot_x, onehot_y, A):
+    """Sharded production dispatch: the SAME indexed gather + producer +
+    wavefront(+replay) body as the single-device path
     (kernels.batch.indexed_dispatch_body), with only the pair axis sharded.
 
     Profile stacks and the substitution matrix are replicated (O(N)
     payload); each device gathers its pair shard's operands locally and
-    runs the full kernel — Pallas fused producer, int8 one-hot scoring and
-    on-device traceback replay included — then scalar terminals and move
-    tapes are all-gathered over ICI.  This replaces the round-1 design
-    where the mesh path fell back to the slower XLA-scan kernel
-    (VERDICT r1 item 2; SURVEY.md §3.2 DP row)."""
+    runs the full dispatch — on-device traceback replay included — then
+    scalar terminals and move tapes are all-gathered (SURVEY.md §3.2 DP
+    row)."""
     mesh = _MESHES[mesh_key]
     from ..kernels.batch import indexed_dispatch_body
 
@@ -129,8 +122,8 @@ def _build_indexed(mesh_key, gap_series, mode, traceback, backend, qd,
         out = indexed_dispatch_body(
             sx, ivx, lensx, sy, ivy, lensy, ix, iy, s,
             gap_series=gap_series, mode=mode, traceback=traceback,
-            backend=backend, qd=qd, replay=replay,
-            onehot_x=onehot_x, onehot_y=onehot_y, A=A, mxp=mxp,
+            backend=backend, replay=replay,
+            onehot_x=onehot_x, onehot_y=onehot_y, A=A,
         )
         res = {
             k: jax.lax.all_gather(v, PAIR_AXIS, axis=0, tiled=True)
@@ -147,19 +140,19 @@ def _build_indexed(mesh_key, gap_series, mode, traceback, backend, qd,
 
 
 def sharded_indexed_dispatch(mesh, sx, ivx, lensx, sy, ivy, lensy, ix, iy, s,
-                             *, gap_series, mode, traceback, backend, qd,
-                             replay, onehot_x, onehot_y, A, mxp="highest"):
+                             *, gap_series, mode, traceback, backend,
+                             replay, onehot_x, onehot_y, A):
     """Indexed batched DP with the pair axis sharded over ``mesh`` (batch
     must be a multiple of the mesh's pair-axis size; kernels.batch pads)."""
     key = _register_mesh(mesh)
     fn = _build_indexed(key, tuple(gap_series), mode, traceback, backend,
-                        qd, replay, onehot_x, onehot_y, A, mxp)
+                        replay, onehot_x, onehot_y, A)
     return fn(sx, ivx, lensx, sy, ivy, lensy, ix, iy, s)
 
 
 @functools.lru_cache(maxsize=64)
-def _build_indexed_multi(mesh_key, gap_series, mode, traceback, backend, qd,
-                         replay, onehot_x, onehot_y, A, mxp="highest"):
+def _build_indexed_multi(mesh_key, gap_series, mode, traceback, backend,
+                         replay, onehot_x, onehot_y, A):
     """Sharded SUPER-DISPATCH: lax.scan over n_sub sub-batches of the
     indexed body inside one shard_map jit — the per-dispatch round trip is
     paid once per group on every host, and each iteration's transient hs
@@ -183,8 +176,8 @@ def _build_indexed_multi(mesh_key, gap_series, mode, traceback, backend, qd,
             out = indexed_dispatch_body(
                 sx, ivx, lensx, sy, ivy, lensy, ix, iy, s,
                 gap_series=gap_series, mode=mode, traceback=traceback,
-                backend=backend, qd=qd, replay=replay,
-                onehot_x=onehot_x, onehot_y=onehot_y, A=A, mxp=mxp,
+                backend=backend, replay=replay,
+                onehot_x=onehot_x, onehot_y=onehot_y, A=A,
             )
             res = {
                 k: jax.lax.all_gather(v, PAIR_AXIS, axis=0, tiled=True)
@@ -205,24 +198,22 @@ def _build_indexed_multi(mesh_key, gap_series, mode, traceback, backend, qd,
 
 def sharded_indexed_multi_dispatch(mesh, sx, ivx, lensx, sy, ivy, lensy,
                                    ix2, iy2, s, *, gap_series, mode,
-                                   traceback, backend, qd, replay, onehot_x,
-                                   onehot_y, A, mxp="highest"):
+                                   traceback, backend, replay, onehot_x,
+                                   onehot_y, A):
     """n_sub stacked sub-batches (``ix2``/``iy2`` of shape (n_sub, B)) with
     the pair axis sharded; outputs gain a leading (n_sub,) axis."""
     key = _register_mesh(mesh)
     fn = _build_indexed_multi(key, tuple(gap_series), mode, traceback,
-                              backend, qd, replay, onehot_x, onehot_y, A, mxp)
+                              backend, replay, onehot_x, onehot_y, A)
     return fn(sx, ivx, lensx, sy, ivy, lensy, ix2, iy2, s)
 
 
 @functools.lru_cache(maxsize=32)
 def _build_streamed(mesh_key, gap_series, mode, traceback, replay):
     """Sharded STREAMED dispatch (VERDICT r2 weak #4): oversized problems —
-    past the Pallas lane ceiling or the materialized producer's budget —
-    previously ran single-device even under a mesh; here the streamed
-    scan (no hs tensor, any Lx/Ly) runs inside shard_map with the pair
-    axis sharded, device replay included, so a long-skewed workload keeps
-    every chip busy."""
+    past the materialized producer's budget — run the streamed scan (no hs
+    tensor, any Lx/Ly) inside shard_map with the pair axis sharded, device
+    replay included, so a long-skewed workload keeps every device busy."""
     mesh = _MESHES[mesh_key]
     from ..kernels.replay import replay_moves
     from ..kernels.scan import wavefront_dp_streamed
@@ -319,109 +310,8 @@ def sharded_ckpt_dispatch(mesh, cx, inv_x, cy, inv_y, s, lx, ly, *,
     return fn(cx, inv_x, cy, inv_y, s, lx, ly)
 
 
-@functools.lru_cache(maxsize=256)
-def _build_chunk_step(mesh_key, gap_series, mode, traceback, b0, nb, first,
-                      total_d, gather_tb=False):
-    """One band chunk of the CHUNKED (oversized-Ly) route inside shard_map:
-    the fused producer materializes only this chunk's score bands and the
-    Pallas kernel resumes from the carried state, with the pair axis
-    sharded — previously the chunked route fell back to the XLA scan under
-    a mesh (STATUS r3 gap #4).  Carries stay sharded on device between
-    chunk steps; terminals all-gather.  Traceback bits stay sharded on a
-    single-process mesh (the host pulls its own shards per chunk); under a
-    MULTI-PROCESS mesh ``gather_tb`` all-gathers each chunk's bits over the
-    pair axis — the checkpointed-ring pattern of per-block bit all_gathers
-    (dist.ring) applied per chunk — so every host can pull them and the
-    Pallas body keeps running cross-process (round 5; previously the
-    traceback half fell back to the XLA scan)."""
-    mesh = _MESHES[mesh_key]
-    from ..kernels.fused_scores import TILE, fused_skewed_scores
-    from ..kernels.pallas_dp import wavefront_dp_pallas
-
-    pp3 = P(PAIR_AXIS, None, None)
-    pp2 = P(PAIR_AXIS, None)
-    carry_specs = (P(None, PAIR_AXIS, None),) * 2 + (P(None, PAIR_AXIS, None),) * 2
-    in_specs = (pp3, pp2, pp3, pp2, P(None, None), P(PAIR_AXIS), P(PAIR_AXIS))
-    if not first:
-        in_specs = in_specs + carry_specs
-    out_specs = {k: P() for k in ("score", "length", "ti", "tj", "tcode")}
-    out_specs["carry"] = carry_specs
-    if traceback:
-        out_specs["tb"] = P() if gather_tb else P(None, PAIR_AXIS, None)
-
-    def run(cx, inv_x, cy, inv_y, s, lx, ly, *carry):
-        hs = fused_skewed_scores(
-            cx, inv_x, cy, inv_y, s, band_start=b0, n_bands=nb
-        )
-        out = wavefront_dp_pallas(
-            hs, lx, ly, gap_series=gap_series, mode=mode,
-            traceback=traceback, lengths=True, hs_body=True, chunked=True,
-            first=first, d_base=2 + b0 * TILE, total_d=total_d,
-            carry_in=carry if carry else None,
-        )
-        res = {
-            k: jax.lax.all_gather(out[k], PAIR_AXIS, axis=0, tiled=True)
-            for k in ("score", "length", "ti", "tj", "tcode")
-        }
-        res["carry"] = out["carry"]
-        if traceback:
-            res["tb"] = (
-                jax.lax.all_gather(out["tb"], PAIR_AXIS, axis=1, tiled=True)
-                if gather_tb
-                else out["tb"]
-            )
-        return res
-
-    fn = shard_map(run, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_vma=False)
-    return jax.jit(fn)
-
-
-def sharded_chunked_dispatch(mesh, cx, inv_x, cy, inv_y, s, lx, ly, *,
-                             gap_series, mode, traceback, chunk_bands=16,
-                             gather_tb=False):
-    """Chunked-diagonal batched DP (kernels.chunked semantics) with the pair
-    axis sharded over ``mesh``; the batch must be a multiple of the mesh's
-    pair-axis size (kernels.batch pads).  Returns the kernels.chunked result
-    shape: terminals + ``tb_chunks`` (host numpy, per chunk).  Set
-    ``gather_tb`` on multi-process meshes so the per-chunk bit pulls are
-    addressable on every host."""
-    import numpy as np
-
-    from ..kernels.fused_scores import TILE
-
-    key = _register_mesh(mesh)
-    B, Lx, _ = cx.shape
-    Ly = cy.shape[1]
-    D = Lx + Ly + 1
-    total_bands = -(-(D - 2) // TILE)
-    total_d = 2 + total_bands * TILE
-
-    carry = None
-    tb_chunks: list = []
-    res = None
-    for b0 in range(0, total_bands, chunk_bands):
-        nb = min(chunk_bands, total_bands - b0)
-        fn = _build_chunk_step(key, tuple(gap_series), mode, bool(traceback),
-                               b0, nb, b0 == 0, total_d,
-                               gather_tb=bool(gather_tb))
-        args = (cx, inv_x, cy, inv_y, s, lx, ly)
-        if carry is not None:
-            args = args + tuple(carry)
-        res = fn(*args)
-        carry = res["carry"]
-        if traceback:
-            tb_chunks.append(np.asarray(res["tb"]))
-
-    result = {k: res[k] for k in ("score", "length", "ti", "tj", "tcode")}
-    if traceback:
-        result["tb_chunks"] = tb_chunks
-    return result
-
-
 @functools.lru_cache(maxsize=32)
-def _build_tracks(mesh_key, gap_series, mode, traceback, weights, steps, T,
-                  mxp="highest"):
+def _build_tracks(mesh_key, gap_series, mode, traceback, weights, steps, T):
     """Sharded MULTI-TRACK dispatch: the composite indexed body
     (kernels.batch.composite_dispatch_body) inside shard_map with the pair
     axis sharded; per-track stacks replicate, index vectors shard, and
@@ -442,7 +332,7 @@ def _build_tracks(mesh_key, gap_series, mode, traceback, weights, steps, T,
         out = composite_dispatch_body(
             sxs, ivxs, lensx, sys_, ivys, lensy, ix, iy, ss,
             gap_series=gap_series, mode=mode, traceback=traceback,
-            weights=weights, steps=steps, mxp=mxp,
+            weights=weights, steps=steps,
         )
         return {
             k: jax.lax.all_gather(v, PAIR_AXIS, axis=0, tiled=True)
@@ -456,9 +346,9 @@ def _build_tracks(mesh_key, gap_series, mode, traceback, weights, steps, T,
 
 def sharded_tracks_dispatch(mesh, sxs, ivxs, lensx, sys_, ivys, lensy,
                             ix, iy, ss, *, gap_series, mode, traceback,
-                            weights, steps, mxp="highest"):
+                            weights, steps):
     """Multi-track composite batched DP with the pair axis sharded."""
     key = _register_mesh(mesh)
     fn = _build_tracks(key, tuple(gap_series), mode, traceback,
-                       tuple(weights), int(steps), len(ss), mxp)
+                       tuple(weights), int(steps), len(ss))
     return fn(sxs, ivxs, lensx, sys_, ivys, lensy, ix, iy, ss)

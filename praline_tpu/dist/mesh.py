@@ -1,7 +1,7 @@
 """Device mesh setup (SURVEY.md §3.2 "collective backend" row).
 
-The reference is a single-process CPU program; the TPU build distributes the
-pair space over ``jax.sharding.Mesh`` axes with XLA collectives over ICI/DCN.
+The reference is a single-process CPU program; this build distributes the
+pair space over ``jax.sharding.Mesh`` axes with XLA collectives (NCCL on GPUs).
 Mesh axes: ``pairs`` shards independent DP problems (the data-parallel axis);
 a future ``wave`` axis is reserved for the multi-device diagonal-block ring
 over one huge problem (SURVEY.md §3.2 "ring" row, out of the minimum slice).

@@ -3,7 +3,7 @@
 One alignment too big for a single device: the DP lane (x) axis is sharded
 over the mesh's ``pairs`` axis — device d owns a contiguous block of
 diagonal-wavefront lanes — and boundary lane state crosses to the right
-neighbour over ``ppermute`` (ICI on real hardware) while terminal
+neighbour over ``ppermute`` while terminal
 reductions finish with collective reduces.  Scores are produced per-device
 with the streamed windowed producer (kernels.scan), so no device ever
 materializes more than its own lane block: per-device memory is
@@ -20,7 +20,7 @@ Two exchange schedules (kernels.scan._wavefront):
   K-fold at the cost of n-1 pipeline fill/drain supersteps (measured 9x
   end-to-end on the simulated 8-device mesh at Lx=2000).
 
-Both are bit-equal to the single-device scan/chunked path (the DP body is
+Both are bit-equal to the single-device scan (the DP body is
 literally the same code with ring collectives injected; parity-tested in
 tests/dist/test_ring.py, traceback bits included).
 
@@ -36,7 +36,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from .allpairs import shard_map, _register_mesh, _MESHES
+from jax import shard_map
+
+from .allpairs import _register_mesh, _MESHES
 from .mesh import PAIR_AXIS
 from ..kernels.scan import _wavefront
 from ..kernels.scores import HIGHEST
@@ -71,9 +73,9 @@ def _build_ring(mesh_key, Lx, Ly, A, gap_series, mode, traceback, interval,
             return (h_int * invx_pad) * w_iv
 
         def hband_fn(ds):
-            # Whole-superstep production on the MXU: ONE dot_general
-            # computes the local H block for the K-diagonal band (instead
-            # of K per-diagonal VPU window contractions), then a diagonal
+            # Whole-superstep production as ONE dot_general: the local H
+            # block for the K-diagonal band (instead of K per-diagonal
+            # window contractions), then a diagonal
             # gather skews it into score rows.  H is exact-integer f32, so
             # any contraction order is bit-identical to hrow_fn; the
             # (h * invx) * invy multiply order is pinned the same.

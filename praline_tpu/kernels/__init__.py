@@ -1,4 +1,4 @@
-"""TPU compute kernels: batched wavefront DP (XLA scan + Pallas) and drivers.
+"""Device compute: batched wavefront DP (XLA scan + a Pallas GPU kernel) and dispatch.
 
 Importing this package pulls in JAX; host-only layers (types/io/oracle) do
 not depend on it.

@@ -126,7 +126,7 @@ def _walk_step(bits, i, j, st, lvl, done, k, local=False):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("gap_series", "mode", "steps", "strip")
+    jax.jit, static_argnames=("gap_series", "mode", "steps")
 )
 def replay_moves(
     tb: jax.Array,  # uint8[T, B, Lp], row t = diagonal t + 2
@@ -136,34 +136,19 @@ def replay_moves(
     gap_series: tuple[int, ...] = (11, 1),
     mode: str = "global",
     steps: int | None = None,
-    strip: tuple[int, int] | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Walk the direction bits for a whole batch on device.
 
     Returns ``(moves, n)``: ``moves`` uint8[B, steps] in terminal->origin
     emission order and ``n`` int32[B] emitted-move counts.  ``steps`` must
     bound the longest walk (``lx + ly``; defaults to ``T + 1``).
-
-    ``strip=(K, R)`` reads the strip-packed layout (kernels.strip): problem
-    ``p`` (slot-major, ``B`` walks total over ``B // R`` tensor rows) has
-    its cell (i, j) bits at row ``(p % R) * K + i + j``, batch row
-    ``p // R``.
     """
     if mode not in ("global", "semiglobal", "local"):
         raise ValueError(f"unknown mode {mode!r}")
     local = mode == "local"
-    T, Bs, Lp = tb.shape
+    T, B, Lp = tb.shape
     k = len(gap_series)
-    if strip is None:
-        B = Bs
-        bidx = jnp.arange(B, dtype=jnp.int32)
-        roff = jnp.full((B,), -2, jnp.int32)  # classic: row t = diagonal t+2
-    else:
-        K, R = strip
-        B = Bs * R
-        p = jnp.arange(B, dtype=jnp.int32)
-        bidx = p // R
-        roff = (p % R) * K  # strip rows are steps based at d = 0
+    bidx = jnp.arange(B, dtype=jnp.int32)
     if steps is None:
         steps = T + 1
 
@@ -177,7 +162,7 @@ def replay_moves(
         # where both the flat int32 index arithmetic and jnp's axis-size
         # constant for negative-index wrapping overflow int32.
         bits = tb[
-            jnp.clip(d + roff, 0, T - 1), bidx, jnp.clip(i, 0, Lp - 1)
+            jnp.clip(d - 2, 0, T - 1), bidx, jnp.clip(i, 0, Lp - 1)
         ].astype(jnp.int32)
         return _walk_step(bits, i, j, st, lvl, done, k, local=local)
 

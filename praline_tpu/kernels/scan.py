@@ -1,12 +1,12 @@
 """Batched anti-diagonal wavefront DP as a jitted ``lax.scan`` (SURVEY.md §9 P2).
 
 This replaces the reference's per-cell interpreted loop (SURVEY.md C10) with
-the TPU-shaped formulation: all cells of an anti-diagonal update in one
+a vectorized formulation: all cells of an anti-diagonal update in one
 vector operation, a batch of B independent pairwise problems rides the
-sublane axis, and the scan streams precomputed skewed scores (kernels.scores)
-diagonal by diagonal.  The same code path runs on CPU (tests) and TPU; the
-Pallas kernel (kernels.pallas_dp) implements the identical recurrence with
-explicit VMEM control.
+leading axis, and the scan streams precomputed skewed scores (kernels.scores)
+diagonal by diagonal.  The same code path runs on CPU (tests) and GPU; the
+scores-only Pallas kernel (kernels.lane_dp) computes the identical
+recurrence one problem per GPU lane.
 
 Semantics are bit-identical to praline_tpu.oracle.align (the parity
 contract): same state machine, same tie-breaks, same f32 arithmetic.
@@ -118,8 +118,8 @@ def wavefront_dp_streamed(
     """Wavefront DP with STREAMED score production: each scan step computes
     its own diagonal's scores from device-resident profiles, so the skewed
     O(D * B * Lp) ``hs`` tensor never exists — peak memory is O(B * L * A).
-    This lifts both the Pallas kernel's VMEM lane ceiling and the
-    materialized producer's HBM ceiling: any Lx, any Ly (SURVEY.md §6
+    This lifts the materialized producer's device-memory ceiling: any Lx,
+    any Ly (SURVEY.md §6
     long-context row; the routing lives in kernels.batch).
 
     Bit-identical to ``skewed_pair_scores`` + ``wavefront_dp``: the per-cell
@@ -399,7 +399,7 @@ def _wavefront(hs, hrow_fn, D, B, Lp, lx, ly, gap_series, mode, traceback,
 
     def pick_lane(v, idx, fill):
         """v (B, Lp), idx (B,) -> (B,): value at lane idx via a masked
-        reduce (one-hot max) — far cheaper than a gather on TPU.  In ring
+        reduce (one-hot max) rather than a gather.  In ring
         mode the wanted lane lives on exactly one device; a pmax over the
         ring finishes the reduce."""
         mask = lane == idx[:, None]
@@ -555,9 +555,7 @@ def _wavefront(hs, hrow_fn, D, B, Lp, lx, ly, gap_series, mode, traceback,
                 sx = sx & ~border
                 sy = sy & ~border
             else:
-                # boolean algebra, not where(pred, True, ...): Mosaic cannot
-                # legalize the i8->i1 truncation the scalar-True select
-                # lowers to.
+                # boolean algebra rather than where(pred, True, ...)
                 sx = atd | (sx & ~at0)
                 sy = at0 | (sy & ~atd)
             sxi = sx.astype(jnp.int32)
@@ -703,8 +701,8 @@ def _wavefront(hs, hrow_fn, D, B, Lp, lx, ly, gap_series, mode, traceback,
             # Clip into the cum/border-cost pad range; clipped steps only
             # ever run inside discarded (invalid) or past-terminal work.
             ds = jnp.clip(ds, 2, D + dpad - 2)
-            # hband_fn: whole-chunk score production in ONE MXU matmul
-            # (dist.ring) instead of K per-diagonal VPU window dots —
+            # hband_fn: whole-chunk score production in ONE matmul
+            # (dist.ring) instead of K per-diagonal window dots —
             # bit-equal for every in-range diagonal (exact-integer H).
             hs_chunk = hband_fn(ds) if hband_fn is not None else jax.vmap(hrow_fn)(ds)
 

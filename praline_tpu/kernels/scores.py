@@ -1,20 +1,16 @@
 """Device-side pair score matrices in diagonal-major (skewed) layout.
 
-NOTE: on TPU the production scoring path is kernels.fused_scores (the pair
-score matrix never touches HBM); the XLA gather producers here remain the
-portable reference implementation (CPU backend, parity tests) and the
-fallback for non-Pallas execution.
-
 The reference scores each DP cell with a Python dict lookup (SURVEY.md §3 C10
 [B:5 "scoring (dict lookup -> ...)"]); here the whole L1 x L2 column-pair
-score matrix is produced by two MXU matmuls in integer count space —
+score matrix is produced by two matmuls in integer count space —
 
     H_int = (Cx @ S) @ Cy^T          (exact: see oracle/score.py)
     H     = (H_int * inv_x) * inv_y   (pinned f32 multiply order)
 
 — and then skewed so anti-diagonal d of the DP grid is the contiguous row
 ``hs[d]``, which the wavefront scan streams sequentially.  ``Precision.HIGHEST``
-keeps the bf16 matmul passes exact for >8-bit integer operands.
+keeps the products in true float32 (no TF32 or bf16 passes), where integer
+counts are exact below 2^24 in any summation order.
 
 Skew layout: ``hs[d, b, i] = H[b, i-1, d-i-1]`` for interior DP cells
 (1 <= i, 1 <= d-i), zero elsewhere; the diagonal-major (D, B, Lp) axis order
@@ -61,40 +57,6 @@ def skewed_pair_scores(
     return jnp.transpose(hs, (1, 0, 2))
 
 
-@functools.partial(jax.jit, static_argnames=("qdtype",))
-def skewed_pair_scores_int(
-    cx: jax.Array,  # f32[B, Lx, A] ONE-HOT counts (column totals <= 1)
-    cy: jax.Array,  # f32[B, Ly, A]
-    s: jax.Array,  # f32[A, A]
-    qdtype=jnp.int8,
-):
-    """Scale-free compressed variant for one-hot profiles (seq-seq and
-    dummy-preprofile alignment): every column inverse is exactly 1, so the
-    integer dot IS the score and the skewed tensor ships as int8/int16 —
-    2-4x less HBM traffic, bit-identical results, and no in-kernel
-    arithmetic whose rounding a compiler could alter (the f32 path's
-    (H*invx)*invy multiplies are FMA/reassociation bait; here there are
-    none).  The caller must guarantee the one-hot property.
-    """
-    B, Lx, A = cx.shape
-    Ly = cy.shape[1]
-    D = Lx + Ly + 1
-
-    t = jnp.einsum("bxa,ac->bxc", cx, s, precision=HIGHEST)
-    h_int = jnp.einsum("bxc,byc->bxy", t, cy, precision=HIGHEST)
-    h_q = h_int.astype(qdtype)
-
-    d_idx = jnp.arange(D, dtype=jnp.int32)[:, None]
-    i_idx = jnp.arange(Lx + 1, dtype=jnp.int32)[None, :]
-    j_idx = d_idx - i_idx - 1
-    valid = (i_idx >= 1) & (j_idx >= 0) & (j_idx <= Ly - 1)
-    i_g = jnp.clip(i_idx - 1, 0, Lx - 1)
-    j_g = jnp.clip(j_idx, 0, Ly - 1)
-    hs = h_q[:, i_g, j_g]
-    hs = jnp.where(valid[None], hs, jnp.zeros((), qdtype))
-    return jnp.transpose(hs, (1, 0, 2))
-
-
 def composite_skewed_scores(
     cxs,  # sequence of f32[B, Lx, A_t] per track
     inv_xs,  # sequence of f32[B, Lx]
@@ -120,12 +82,3 @@ def composite_skewed_scores(
         term = jnp.float32(w) * hs
         acc = term if acc is None else acc + term
     return acc
-
-
-def quantized_dtype_for(max_abs_int: float):
-    """Pick the narrowest dtype holding every |H_int| value, or None."""
-    if max_abs_int < 127:
-        return jnp.int8
-    if max_abs_int < 32767:
-        return jnp.int16
-    return None

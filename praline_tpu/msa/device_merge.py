@@ -51,7 +51,7 @@ from ..oracle.merge import inject_gaps, reorder_to_input
 from ..oracle.profile import COUNT_LIMIT, member_profile, rescale_counts
 
 # Column-capacity ladder (2^n - 1 like the batch driver's buckets: diagonal
-# vectors of length C_cap + 1 fill TPU lanes exactly).  Rungs above 8191
+# vectors of length C_cap + 1 are powers of two).  Rungs above 8191
 # (round 5, SURVEY §9 P3) run the CHECKPOINTED walk so giant-MSA merges
 # keep the node-table path with O(C^1.5) traceback memory.
 C_BUCKETS = (127, 255, 511, 1023, 2047, 4095, 8191, 16383, 32767)
@@ -122,7 +122,7 @@ def _make_join_body(C_cap: int, A: int, gap_series: tuple[int, ...],
 
         # Column inverses via exact table lookup: totals are exact f32
         # integers and the table holds host-computed correctly-rounded f32
-        # reciprocals (TPU division is not IEEE-exact).
+        # reciprocals (device division need not be correctly rounded).
         totl = jnp.sum(cl, axis=2).astype(jnp.int32)
         totr = jnp.sum(cr, axis=2).astype(jnp.int32)
         invl = inv_table[jnp.clip(totl, 0, inv_size - 1)]

@@ -160,8 +160,7 @@ def batched_all_pairs(
     # Tiles exist for RESUME granularity; without a checkpoint (or fault
     # seam) the whole stage runs as ONE call — the batch driver's async
     # in-flight queue then overlaps every chunk's result pull with the
-    # next chunk's compute, leaving a single serial pull for the stage
-    # (the relay round trip is ~37 ms/pull, tools/onchip_latency.py).
+    # next chunk's compute, leaving a single serial pull for the stage.
     tile_pairs = DISTANCE_TILE_PAIRS
     if ckpt is None and fault_hook is None:
         tile_pairs = max(len(index), 1)
@@ -295,7 +294,7 @@ def msa_align(
     """Full PRALINE-equivalent MSA (SURVEY.md C18), batched on device.
 
     ``config.backend``: ``"oracle"`` runs the pure NumPy reference pipeline;
-    ``"xla"``/``"pallas"``/``"auto"`` run the batched kernel pipeline.
+    ``"auto"``/``"xla"``/``"triton"`` run the batched device pipeline.
     ``fault_hook`` is a test-only failure-injection seam for the distance
     stage (SURVEY.md §6).  ``on_tree(tree)`` is called with the
     :class:`SequenceTree` once the guide tree exists (CLI ``--tree-out``).

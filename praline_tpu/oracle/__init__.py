@@ -1,7 +1,7 @@
 """NumPy oracle: the executable parity contract (SURVEY.md §0, §8).
 
 Everything here is pure NumPy, deterministic, and defines the exact semantics
-the TPU kernels must reproduce bit-for-bit.
+the device kernels must reproduce bit-for-bit.
 """
 
 from .align import AlignResult, align_profiles, align_scores, align_tokens, align_tracksets

@@ -1,7 +1,7 @@
 """NumPy oracle for the affine/gap-series pairwise DP (SURVEY.md §8, §4.2).
 
-This module IS the executable parity contract (SURVEY.md §0): the XLA and
-Pallas kernels and the C++ reference kernel must reproduce its scores and
+This module IS the executable parity contract (SURVEY.md §0): the XLA scan,
+the Pallas lane kernel and the C++ reference kernel must reproduce its scores and
 traceback paths bit-exactly.  It is deliberately written as a clear per-cell
 loop; the fast paths live in ``praline_tpu.kernels``.
 

@@ -1,7 +1,7 @@
 """End-to-end oracle MSA workflow (SURVEY.md C15/C18, §4.1).
 
 Pure NumPy pipeline: preprofiles -> all-pairs similarity -> guide tree ->
-progressive merge.  This is the correctness anchor the TPU pipeline
+progressive merge.  This is the correctness anchor the device pipeline
 (praline_tpu.msa) must reproduce column-identically; it doubles as a slow CPU
 backend for small problems.
 """
@@ -26,7 +26,7 @@ def all_pairs_scores(
 ) -> tuple[np.ndarray, np.ndarray]:
     """N x N pairwise (score, alignment-length) matrices over preprofile
     tracks (one-hot when absent).  The serial O(N^2) reference of the batched
-    TPU all-pairs stage (SURVEY.md C15)."""
+    device all-pairs stage (SURVEY.md C15)."""
     n = len(sequences)
     profiles = [member_profile(s) for s in sequences]
     scores = np.zeros((n, n), dtype=np.float64)

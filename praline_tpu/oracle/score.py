@@ -7,14 +7,14 @@ the substitution matrix::
     score(c1, c2) = f1^T S f2,   f = c / max(1, sum(c))
 
 To make this bit-identical between the NumPy oracle, the XLA kernel and the
-Pallas kernel regardless of summation order, the arithmetic is pinned as:
+GPU lane kernel regardless of summation order, the arithmetic is pinned as:
 
 1. ``D = c1^T S c2`` computed exactly.  All operands are small integers, so
    every partial sum is an exactly-representable float32 integer as long as
    ``n1 * n2 * max|S| < 2**24`` — and exact arithmetic is order-independent,
-   which is what buys us MXU-matmul == numpy-dot equality (SURVEY.md §9 hard
-   part 6).  On TPU the matmuls must run with ``Precision.HIGHEST`` so the
-   bf16 passes cover >8-bit integer operands exactly.
+   which is what buys us device-matmul == numpy-dot equality (SURVEY.md §9
+   hard part 6).  On the device the matmuls run with ``Precision.HIGHEST``
+   (true float32: no TF32 or bf16 passes) so integer operands stay exact.
 2. ``score = (D * inv1) * inv2`` in float32, with ``inv = 1/max(1, n)``
    computed by a single float32 division (correctly rounded IEEE on host;
    kernels receive ``inv`` precomputed so they never divide).

@@ -1,6 +1,6 @@
 """Alphabets: symbol <-> token-index mapping.
 
-TPU-first design: an :class:`Alphabet` is a frozen value object whose only
+Array-first design: an :class:`Alphabet` is a frozen value object whose only
 runtime artifact is a 256-entry ``uint8 -> int32`` lookup table, so tokenizing
 a sequence is a single vectorized numpy gather and every downstream container
 is an integer array from the start (SURVEY.md C1; reference semantics

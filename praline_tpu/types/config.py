@@ -15,6 +15,8 @@ PreprofileMode = Literal["dummy", "global", "local"]
 Linkage = Literal["single", "complete", "average"]
 ScoreNormalization = Literal["none", "length"]
 OutputFormat = Literal["fasta", "clustal"]
+# Device compute routes ("oracle" is the NumPy reference pipeline beside them).
+BACKENDS = ("auto", "xla", "triton")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +48,11 @@ class PralineConfig:
     score_normalization: ScoreNormalization = "length"
     output_format: OutputFormat = "fasta"
     fasta_wrap: int = 60  # §8.6: wrap sequence lines at 60 chars
-    # Batching / device knobs (TPU build only; no reference analog).
-    # Buckets are 2^n - 1 so diagonal vectors (length bucket+1) fill TPU
-    # lanes exactly.
+    # Batching / device knobs (no reference analog).  Buckets are 2^n - 1
+    # so diagonal vectors (length bucket+1) are powers of two.
     bucket_sizes: tuple[int, ...] = (63, 127, 255, 511, 1023, 2047)
     batch_pairs: int = 512  # pairwise problems per batched DP dispatch
-    backend: Literal["auto", "oracle", "xla", "pallas"] = "auto"
+    backend: Literal["auto", "oracle", "xla", "triton"] = "auto"
     # Distribution (SURVEY.md §3.2): pair-space sharding over a device mesh.
     mesh_shape: tuple[int, ...] | None = None
     checkpoint_dir: str | None = None

@@ -2,7 +2,7 @@
 
 These replace the reference's pure-Python object model (SURVEY.md C2/C3/C4/C5:
 ``Sequence``+tracks, ``Alignment``, ``ScoreMatrix``, ``SequenceTree``) with
-numpy-array-backed values that move onto a TPU without conversion:
+numpy-array-backed values that move onto the device without conversion:
 
 * a sequence is its ``int32[L]`` token track (plus optional profile tracks),
 * an alignment is an ``int32[n, C]`` gapped token matrix (gap == -1),
@@ -33,7 +33,7 @@ class Profile:
     """Position-specific residue counts: ``counts[L, A]`` + ``gaps[L]``.
 
     ``counts`` is float32 but always holds exact small integers so that
-    count-space matmuls on the MXU are exact and therefore order-independent
+    count-space matmuls on the device are exact and therefore order-independent
     (the bit-parity trick pinned in SURVEY.md §9 hard-part 6).
     """
 

@@ -1,7 +1,7 @@
 """Tile-resumable checkpoints for the expensive pipeline stages.
 
-The reference has no checkpointing (rerun from scratch; SURVEY.md §6).  The
-TPU build persists, per run: (a) preprofile tracks, (b) the O(N^2) distance
+The reference has no checkpointing (rerun from scratch; SURVEY.md §6).  This
+build persists, per run: (a) preprofile tracks, (b) the O(N^2) distance
 matrices, (c) the guide tree — as ``.npz``/JSON artifacts keyed by a digest
 of the inputs + config, so ``--resume`` skips completed stages and a
 multi-host failure restarts from the last finished artifact.

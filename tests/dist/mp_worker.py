@@ -93,7 +93,7 @@ iout = sharded_indexed_dispatch(
     _repl(toks), _repl(np.zeros((1, 1), np.float32)), _repl(lens),
     _shard(ix), _shard(iy), _repl(np.asarray(s)),
     gap_series=(11, 1), mode="global", traceback=False, backend="xla",
-    qd=None, replay=False, onehot_x=True, onehot_y=True, A=A,
+    replay=False, onehot_x=True, onehot_y=True, A=A,
 )
 iscores = np.asarray(iout["score"].addressable_shards[0].data).ravel()
 ilengths = np.asarray(iout["length"].addressable_shards[0].data).ravel()
@@ -122,11 +122,9 @@ tres = align_tracksets_batched(
 tscores = np.array([r.score for r in tres], np.float32)
 tcols = np.concatenate([np.asarray(r.cols_x, np.int32) for r in tres])
 
-# Chunked (oversized-Ly) route cross-process (r4 scores, r5 traceback —
-# STATUS gap #4 closed): the sharded Pallas chunk steps run on the
-# multi-process mesh with the band carries round-tripping as global
-# jax.Arrays; traceback bits all-gather per chunk so every host can pull
-# them (no more XLA fallback).
+# Oversized-Ly problems (exact-size buckets past the ceiling) cross-process:
+# the sharded indexed dispatch on the multi-process mesh, scores and
+# traceback with device replay.
 from praline_tpu.kernels import align_pairs_batched
 
 crng = np.random.default_rng(5)
@@ -144,16 +142,15 @@ cpairs = [
 ]
 cres = align_pairs_batched(
     cpairs, B62m, (11, 1), "global", bucket_sizes=(15,), mesh=mesh,
-    backend="pallas",
 )
 cscores = np.array([r.score for r in cres], np.float32)
 clengths = np.array([r.length for r in cres], np.float32)
 
-# Traceback-mode chunked dispatch on the Pallas body, cross-process: full
-# path equality is asserted by the parent against the single-process run.
+# Traceback-mode oversized-y dispatch, cross-process: full path equality
+# is asserted by the parent against the single-process run.
 ctres = align_pairs_batched(
     cpairs, B62m, (11, 1), "semiglobal", traceback=True,
-    bucket_sizes=(15,), mesh=mesh, backend="pallas",
+    bucket_sizes=(15,), mesh=mesh,
 )
 ctscores = np.array([r.score for r in ctres], np.float32)
 ctcols = np.concatenate(

@@ -102,7 +102,7 @@ def test_two_process_sharded_allpairs(tmp_path):
         data["tcols"], np.concatenate([w.cols_x for w in twant])
     )
 
-    # Chunked (oversized-Ly) scores route cross-process vs the oracle.
+    # Oversized-Ly scores cross-process vs the oracle.
     from praline_tpu.oracle import align_profiles
 
     crng = np.random.default_rng(5)
@@ -122,9 +122,8 @@ def test_two_process_sharded_allpairs(tmp_path):
     np.testing.assert_array_equal(data["cscores"], [w.score for w in cwant])
     np.testing.assert_array_equal(data["clengths"], [w.length for w in cwant])
 
-    # Chunked TRACEBACK dispatch on the Pallas body cross-process (round 5:
-    # per-chunk bit all_gather replaces the XLA fallback) — full path
-    # equality vs the oracle.
+    # Oversized-Ly TRACEBACK dispatch cross-process — full path equality
+    # vs the oracle.
     ctwant = [
         align_profiles(px, py, B62m, (11, 1), "semiglobal")
         for px, py in cpairs

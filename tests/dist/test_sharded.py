@@ -82,7 +82,7 @@ def test_full_pipeline_on_mesh_matches_oracle():
 
 
 def profile_pairs(rng, n, lmax=24):
-    """Integer-count (non-one-hot) profile pairs: the fused f32 path."""
+    """Integer-count (non-one-hot) profile pairs: the narrow-stack f32 path."""
 
     def one(L):
         c = rng.integers(0, 3, size=(L, ALPHABET_AA.size)).astype(np.float32)
@@ -96,17 +96,17 @@ def profile_pairs(rng, n, lmax=24):
 
 
 @pytest.mark.parametrize("mode", ["global", "semiglobal", "local"])
-def test_sharded_pallas_scores_match_oracle(mode):
-    """VERDICT r1 item 2: the mesh path must run the production Pallas
-    kernel (fused producer; int8 for one-hots) — parity on the sim mesh
-    (interpret lowering on CPU)."""
+def test_sharded_pallas_scores_match_oracle(mode, triton_interpret):
+    """VERDICT r1 item 2: the mesh path must run the production scores
+    kernel (kernels.lane_dp inside shard_map) — parity on the sim mesh
+    (interpret mode on CPU)."""
     require_devices(4)
     mesh = make_pair_mesh(4)
     rng = np.random.default_rng(3)
     pairs = random_pairs(rng, 6) + profile_pairs(rng, 5)
     got = align_pairs_batched(
         pairs, B62, (11, 1), mode, bucket_sizes=(31,), batch_pairs=16,
-        mesh=mesh, backend="pallas",
+        mesh=mesh, backend="triton",
     )
     for (px, py), r in zip(pairs, got):
         want = align_profiles(px, py, B62, (11, 1), mode)
@@ -121,11 +121,10 @@ def test_sharded_pallas_traceback_matches_unsharded():
     pairs = random_pairs(rng, 3) + profile_pairs(rng, 3)
     sharded = align_pairs_batched(
         pairs, B62, (11, 1), "global", traceback=True, bucket_sizes=(31,),
-        mesh=mesh, backend="pallas",
+        mesh=mesh,
     )
     plain = align_pairs_batched(
         pairs, B62, (11, 1), "global", traceback=True, bucket_sizes=(31,),
-        backend="pallas",
     )
     for a, b in zip(sharded, plain):
         assert a.score == b.score
@@ -145,7 +144,9 @@ def test_streamed_route_sharded_under_mesh(monkeypatch):
     from praline_tpu.oracle import align_profiles
     from praline_tpu.types import Profile
 
-    monkeypatch.setattr(batch_mod, "_lane_cap", lambda gs, tb: 20)  # force stream
+    monkeypatch.setattr(  # stream everything past the 15-bucket
+        batch_mod, "HS_BYTES_BUDGET", batch_mod.per_problem_bytes(15, 15)[0]
+    )
     rng = np.random.default_rng(21)
 
     def one(L):
@@ -159,7 +160,7 @@ def test_streamed_route_sharded_under_mesh(monkeypatch):
     for mode in ("global", "semiglobal", "local"):
         got = align_pairs_batched(
             pairs, B62, (11, 1), mode, traceback=True,
-            bucket_sizes=(15, 63), mesh=mesh, backend="pallas",
+            bucket_sizes=(15, 63), mesh=mesh,
         )
         for (px, py), r in zip(pairs, got):
             want = align_profiles(px, py, B62, (11, 1), mode)
@@ -233,7 +234,9 @@ def test_ckpt_route_sharded_under_mesh(monkeypatch):
     from praline_tpu.oracle import align_profiles
     from praline_tpu.types import Profile
 
-    monkeypatch.setattr(batch_mod, "_lane_cap", lambda gs, tb: 20)
+    monkeypatch.setattr(
+        batch_mod, "HS_BYTES_BUDGET", batch_mod.per_problem_bytes(15, 15)[0]
+    )
     monkeypatch.setattr(batch_mod, "TB_BYTES_BUDGET", 64)  # force ckpt route
     rng = np.random.default_rng(29)
 
@@ -248,94 +251,10 @@ def test_ckpt_route_sharded_under_mesh(monkeypatch):
     for mode in ("global", "local"):
         got = align_pairs_batched(
             pairs, B62, (11, 1), mode, traceback=True,
-            bucket_sizes=(15, 63), mesh=mesh, backend="pallas",
+            bucket_sizes=(15, 63), mesh=mesh,
         )
         for (px, py), r in zip(pairs, got):
             want = align_profiles(px, py, B62, (11, 1), mode)
             assert r.score == want.score, mode
             np.testing.assert_array_equal(r.cols_x, want.cols_x)
             np.testing.assert_array_equal(r.cols_y, want.cols_y)
-
-
-def test_chunked_route_sharded_under_mesh(monkeypatch):
-    """Oversized-Ly (chunked-route) problems run the band-chunked fused
-    producer INSIDE shard_map on a single-process mesh instead of falling
-    back to the XLA scan (STATUS r3 gap #4), bit-equal to the oracle —
-    traceback bits pulled per chunk included."""
-    import numpy as np
-
-    from praline_tpu import ALPHABET_AA
-    from praline_tpu.dist import make_pair_mesh
-    from praline_tpu.dist import allpairs as allpairs_mod
-    from praline_tpu.oracle import align_profiles
-    from praline_tpu.types import Profile
-
-    rng = np.random.default_rng(33)
-
-    def one(L):
-        return Profile.from_tokens(
-            rng.integers(0, 20, size=L).astype(np.int32), ALPHABET_AA
-        )
-
-    # by (40..59 -> exact bucket) > bucket_sizes[-1]=31 triggers the
-    # chunked route; Lx <= 31 keeps x bucketed and hs under budget.
-    pairs = [(one(int(rng.integers(12, 30))), one(int(rng.integers(40, 60))))
-             for _ in range(5)]  # 5 pairs over 4 devices: shard pad too
-    mesh = make_pair_mesh(4)
-    calls = []
-    real = allpairs_mod.sharded_chunked_dispatch
-
-    def spy(*a, **k):
-        calls.append(k.get("mode"))
-        return real(*a, **k)
-
-    monkeypatch.setattr(allpairs_mod, "sharded_chunked_dispatch", spy)
-    for mode in ("global", "semiglobal", "local"):
-        for tb in (False, True):
-            got = align_pairs_batched(
-                pairs, B62, (11, 1), mode, traceback=tb,
-                bucket_sizes=(31,), mesh=mesh, backend="pallas",
-            )
-            for (px, py), r in zip(pairs, got):
-                want = align_profiles(px, py, B62, (11, 1), mode)
-                assert r.score == want.score, (mode, tb)
-                if tb:
-                    np.testing.assert_array_equal(r.cols_x, want.cols_x)
-                    np.testing.assert_array_equal(r.cols_y, want.cols_y)
-                else:
-                    assert r.length == want.length, (mode, tb)
-    assert calls, "the sharded chunked route was not taken"
-
-
-def test_strip_route_sharded_under_mesh(monkeypatch):
-    """The strip-packed scores route runs inside shard_map: the per-shard
-    batch feeds strip_plan, so each device packs its own pair shard
-    (PRALINE_STRIP=1 forces admission at test shapes)."""
-    require_devices(8)
-    from praline_tpu.kernels import strip as strip_mod
-
-    monkeypatch.setenv("PRALINE_STRIP", "1")
-    rng = np.random.default_rng(77)
-    pairs = random_pairs(rng, 61, lmax=31)  # ragged; pads to 64 over 8 devs
-    mesh = make_pair_mesh(8)
-    calls = []
-    real = strip_mod.strip_dispatch_core
-
-    def spy(*a, **k):
-        calls.append(k.get("K"))
-        return real(*a, **k)
-
-    monkeypatch.setattr(strip_mod, "strip_dispatch_core", spy)
-    got = align_pairs_batched(
-        pairs, B62, (11, 1), "global", bucket_sizes=(31,), batch_pairs=64,
-        mesh=mesh, backend="pallas",
-    )
-    unsharded = align_pairs_batched(
-        pairs, B62, (11, 1), "global", bucket_sizes=(31,), batch_pairs=64,
-        backend="pallas",
-    )
-    assert calls, "the strip route was not taken under the mesh"
-    for (px, py), r, u in zip(pairs, got, unsharded):
-        want = align_profiles(px, py, B62, (11, 1), "global")
-        assert r.score == want.score == u.score
-        assert r.length == want.length == u.length

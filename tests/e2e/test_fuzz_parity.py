@@ -94,10 +94,10 @@ def test_roundtrip_fasta_clustal(trial):
 
 @pytest.mark.parametrize("trial", range(6))
 def test_heavy_count_profiles_column_identical(trial):
-    """Fuzz with HEAVY integer-count profile pairs straddling the fast-MXU
-    precision bounds (counts near 256, column totals spanning the 2**15/|S|
-    and 2**24 gates): the driver's routing must stay bit-identical to the
-    oracle whichever precision it picks."""
+    """Fuzz with HEAVY integer-count profile pairs (counts near 256,
+    column totals spanning the 2**15/|S| and 2**24 exactness bounds): the
+    dispatcher's narrow integer stacks must stay bit-identical to the
+    oracle."""
     from praline_tpu.kernels import align_pairs_batched
     from praline_tpu.oracle import align_profiles
     from praline_tpu.types import Profile
@@ -127,7 +127,6 @@ def test_heavy_count_profiles_column_identical(trial):
     gs = GAPS[trial % len(GAPS)]
     got = align_pairs_batched(
         pairs, m, gs, mode, traceback=True, bucket_sizes=(31,),
-        backend="pallas",
     )
     for (px, py), r in zip(pairs, got):
         want = align_profiles(px, py, m, gs, mode)

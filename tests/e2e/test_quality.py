@@ -23,7 +23,7 @@ from praline_tpu.util.accuracy import sp_tc
 TESTDATA = Path(__file__).resolve().parents[2] / "testdata"
 
 # Floors ~0.1 under measured steady state (see test docstring for why the
-# ceiling is < 1.0): measured on CPU+TPU backends at round 5.
+# ceiling is < 1.0): measured on the CPU backend.
 SP_FLOOR = 0.80
 TC_FLOOR = 0.55
 

@@ -100,7 +100,7 @@ def _pairs(rng, specs):
 def test_checkpointed_fuzz_vs_oracle(monkeypatch, trial):
     """Random shapes / gap series / modes through the forced checkpointed
     route must reproduce the oracle's exact path."""
-    monkeypatch.setattr(batch_mod, "_lane_cap", lambda gs, tb: 8)
+    monkeypatch.setattr(batch_mod, "HS_BYTES_BUDGET", 0)  # stream everything
     monkeypatch.setattr(batch_mod, "TB_BYTES_BUDGET", 16)
     rng = np.random.default_rng(4000 + trial)
     gs = [(11, 1), (13, 7, 1), (5,), (10, 5, 3, 1)][trial % 4]
@@ -111,7 +111,6 @@ def test_checkpointed_fuzz_vs_oracle(monkeypatch, trial):
     )
     got = align_pairs_batched(
         pairs, B62, gs, mode, traceback=True, bucket_sizes=(7,),
-        backend="pallas",
     )
     for (px, py), r in zip(pairs, got):
         want = align_profiles(px, py, B62, gs, mode)
@@ -125,7 +124,9 @@ def test_giant_traceback_routes_to_checkpointed(monkeypatch, mode):
     """Past the traceback-bit budget, global/semiglobal pairs stay ON
     DEVICE via the checkpointed walk (the native host twin is now only the
     local-mode fallback) and return oracle-identical paths."""
-    monkeypatch.setattr(batch_mod, "_lane_cap", lambda gs, tb: 20)
+    monkeypatch.setattr(
+        batch_mod, "HS_BYTES_BUDGET", batch_mod.per_problem_bytes(15, 15)[0]
+    )
     monkeypatch.setattr(batch_mod, "TB_BYTES_BUDGET", 64)
 
     def no_native(*a, **kw):  # the device path must not fall back
@@ -138,7 +139,7 @@ def test_giant_traceback_routes_to_checkpointed(monkeypatch, mode):
     pairs = _pairs(rng, [(25, 18), (31, 30), (25, 9)])
     got = align_pairs_batched(
         pairs, B62, (11, 1), mode, traceback=True,
-        bucket_sizes=(15,), backend="pallas",
+        bucket_sizes=(15,),
     )
     for (px, py), r in zip(pairs, got):
         want = align_profiles(px, py, B62, (11, 1), mode)

@@ -1,45 +1,14 @@
-"""Exactness admission gates (ADVICE r3): the fast-MXU producer and the
-arena's narrow integer stack dtypes are only admitted when provably exact —
-integer-valued counts and scores within the documented magnitude bounds."""
+"""Exactness admission gates (ADVICE r3): the arena's narrow integer stack
+dtypes are only admitted when provably exact — integer-valued counts."""
 
 import numpy as np
 
 from praline_tpu import ALPHABET_AA, builtin_score_matrix
-from praline_tpu.kernels.batch import ProfileArena, align_pairs_batched, fast_mxu_exact
+from praline_tpu.kernels.batch import ProfileArena, align_pairs_batched
 from praline_tpu.oracle import align_profiles
 from praline_tpu.types import Profile
 
 B62 = builtin_score_matrix("blosum62")
-
-
-def _st(**kw):
-    st = dict(ints=True, cmax=2.0, max_tot=8.0)
-    st.update(kw)
-    return st
-
-
-def test_fast_mxu_gate_accepts_in_bounds_integer_case():
-    assert fast_mxu_exact(11.0, True, _st(), _st())
-
-
-def test_fast_mxu_gate_requires_integral_scores():
-    # Fractional matrix entries would be truncated by the integer split
-    # ti = (t // 128) * 128 — the gate must reject them.
-    assert not fast_mxu_exact(11.0, False, _st(), _st())
-
-
-def test_fast_mxu_gate_requires_integral_counts():
-    assert not fast_mxu_exact(11.0, True, _st(ints=False), _st())
-    assert not fast_mxu_exact(11.0, True, _st(), _st(ints=False))
-
-
-def test_fast_mxu_gate_magnitude_bounds():
-    assert not fast_mxu_exact(300.0, True, _st(), _st())  # |S| > 256
-    assert not fast_mxu_exact(11.0, True, _st(cmax=300.0), _st())
-    # T-split bound: max_tot * max_s >= 2**15
-    assert not fast_mxu_exact(16.0, True, _st(max_tot=2048.0), _st())
-    # Pair-product bound: tot_x * tot_y * max_s near 2**24
-    assert not fast_mxu_exact(11.0, True, _st(max_tot=1400.0), _st(max_tot=1200.0))
 
 
 def _frac_prof(rng, L):
@@ -85,70 +54,3 @@ def test_integer_count_profiles_still_narrow():
     st = arena.stack(31)
     assert st["ints"] is True
     assert np.asarray(st["stack"]).dtype == np.uint8
-
-
-def test_fast_mxu_tier_single_pass_admission():
-    """fast1 (ONE bf16 H pass, round 5) requires every exact x-side |T|
-    <= 256; the tier falls back to the split pair above that and to
-    highest when the base gate fails."""
-    from praline_tpu.kernels.batch import fast_mxu_tier
-
-    rng = np.random.default_rng(3)
-    s = np.asarray(B62.as_f32())
-
-    def prof(scale):
-        c = (scale * rng.integers(0, 3, size=(24, ALPHABET_AA.size))).astype(
-            np.float32
-        )
-        c[:, 0] += 1.0
-        return Profile(c, np.zeros(24, np.float32), ALPHABET_AA)
-
-    small = [prof(1) for _ in range(4)]  # |T| well under 256
-    big = [prof(40) for _ in range(4)]  # totals push |T| past 256
-    st_small = _st(profs=small, onehot=False)
-    st_big = _st(profs=big, onehot=False, cmax=121.0, max_tot=900.0)
-    assert fast_mxu_tier(11.0, True, st_small, st_small, s) == "fast1"
-    assert fast_mxu_tier(11.0, True, st_big, st_small, s) == "fast"
-    # y-side tmax does not matter (T is the x-side operand)
-    assert fast_mxu_tier(11.0, True, st_small, st_big, s) == "fast1"
-    assert fast_mxu_tier(11.0, False, st_small, st_small, s) == "highest"
-
-
-def test_fast1_values_bit_identical_at_the_bound():
-    """Single-pass bf16 H values == highest, including |T| exactly at the
-    256 admission bound (both producers, strip included)."""
-    import jax.numpy as jnp
-
-    from praline_tpu.kernels.fused_scores import (
-        fused_skewed_scores,
-        fused_skewed_scores_strip,
-    )
-
-    rng = np.random.default_rng(9)
-    B, Lx, Ly, A = 4, 21, 19, ALPHABET_AA.size
-    # Matrix of +/-1 and a count column vector hitting |T| == 256 exactly.
-    s = np.where(rng.random((A, A)) < 0.5, 1.0, -1.0).astype(np.float32)
-    s = ((s + s.T) / 2).round() + np.eye(A, dtype=np.float32)
-    cx = rng.integers(0, 3, size=(B, Lx, A)).astype(np.float32)
-    cx[:, :, 0] += 1.0
-    cx[0, 0, :] = 0.0
-    cx[0, 0, int(np.argmax(s.max(axis=1)))] = 128.0  # T row = 128 * s row
-    assert np.abs(cx @ s).max() == 256.0
-    cy = rng.integers(0, 3, size=(B, Ly, A)).astype(np.float32)
-    cy[:, :, 0] += 1.0
-    inv_x = (1.0 / np.maximum(cx.sum(-1), 1.0)).astype(np.float32)
-    inv_y = (1.0 / np.maximum(cy.sum(-1), 1.0)).astype(np.float32)
-    args = tuple(map(jnp.asarray, (cx, inv_x, cy, inv_y, s)))
-
-    want = np.asarray(fused_skewed_scores(*args, mxu_precision="highest"))
-    got = np.asarray(fused_skewed_scores(*args, mxu_precision="fast1"))
-    np.testing.assert_array_equal(got, want)
-
-    K = 128
-    wants = np.asarray(
-        fused_skewed_scores_strip(*args, K=K, R=4, mxu_precision="highest")
-    )
-    gots = np.asarray(
-        fused_skewed_scores_strip(*args, K=K, R=4, mxu_precision="fast1")
-    )
-    np.testing.assert_array_equal(gots, wants)

@@ -2,9 +2,8 @@
 
 The batched path handles sequences far beyond the default buckets by giving
 oversized problems their own exact-size bucket; cross-checked against the
-fast native C++ kernel (the oracle would be too slow at this size).  The
-same flow at L=8000 with traceback was validated bit-exact on a real TPU
-chip.
+fast native C++ kernel (the oracle would be too slow at this size).
+chip_smoke.py runs the long routes at full size on the GPU.
 """
 
 import shutil

@@ -1,5 +1,5 @@
 """C++ native kernel == oracle parity (SURVEY.md §9 P6: the
-oracle <-> C++ <-> XLA <-> Pallas parity square)."""
+oracle <-> C++ <-> XLA scan <-> lane kernel parity square)."""
 
 import shutil
 

@@ -231,22 +231,22 @@ def test_batched_tracksets_super_dispatch_groups():
 @pytest.mark.parametrize("mode", ["global", "semiglobal", "local"])
 @pytest.mark.parametrize("tb", [False, True])
 def test_tracksets_ride_the_strip(monkeypatch, mode, tb):
-    """Round 5: composite dispatches route through the strip-packed
-    wavefront (per-track strip producers + the scan-boundary weighted
-    accumulation + strip DP/replay), bit-identical to the oracle.
-    PRALINE_STRIP=1 forces admission at test shapes; distinctive bucket
-    sizes avoid stale-trace collisions with the unforced tests."""
-    from praline_tpu.kernels import strip as strip_mod
+    """Composite dispatches (per-track producers + the scan-boundary
+    weighted accumulation + DP and device replay) are bit-identical to
+    the oracle in every mode, scores and traceback; a distinctive bucket
+    size guarantees a fresh trace in this test."""
+    from praline_tpu.kernels import batch as batch_mod
 
-    monkeypatch.setenv("PRALINE_STRIP", "1")
     seen = []
-    real = strip_mod.strip_run_from_hs
+    real = batch_mod.composite_dispatch_body
 
     def spy(*a, **k):
-        seen.append(k.get("K"))
+        seen.append(k.get("steps"))
         return real(*a, **k)
 
-    monkeypatch.setattr(strip_mod, "strip_run_from_hs", spy)
+    monkeypatch.setattr(batch_mod, "composite_dispatch_body", spy)
+    batch_mod._composite_indexed_jit.cache_clear()
+    batch_mod._composite_multi_jit.cache_clear()
     rng = np.random.default_rng(91)
     mats, w = [B62, PAM], (1.0, 0.5)
     pairs = []
@@ -261,7 +261,7 @@ def test_tracksets_ride_the_strip(monkeypatch, mode, tb):
     )
     # the spy fires at TRACE time; distinctive shapes guarantee a fresh
     # trace in this test
-    assert seen, "composite dispatch did not take the strip route"
+    assert seen, "the composite dispatch body did not run"
     for (txs, tys), r in zip(pairs, got):
         want = align_tracksets(txs, tys, mats, w, (11, 1), mode)
         assert r.score == want.score, (mode, tb)
@@ -270,34 +270,3 @@ def test_tracksets_ride_the_strip(monkeypatch, mode, tb):
             np.testing.assert_array_equal(r.cols_y, want.cols_y)
         else:
             assert r.length == want.length
-
-
-def test_tracksets_mxp_tier_parity(monkeypatch):
-    """The trackset MXU tier (round 5): strip composites run fast/fast1
-    producers when every track proves exact — results identical to the
-    forced-highest escape hatch."""
-    from praline_tpu.kernels import batch as batch_mod
-
-    monkeypatch.setenv("PRALINE_STRIP", "1")
-    rng = np.random.default_rng(17)
-    mats, w = [B62, PAM], (1.0, 0.5)
-    pairs = []
-    for _ in range(8):
-        Lx, Ly = int(rng.integers(18, 30)), int(rng.integers(18, 30))
-        pairs.append(
-            ((_prof(rng, Lx), _prof(rng, Lx)), (_prof(rng, Ly), _prof(rng, Ly)))
-        )
-
-    got_auto = align_tracksets_batched(
-        pairs, mats, w, (11, 1), "global", traceback=True,
-        bucket_sizes=(29,), batch_pairs=8,
-    )
-    monkeypatch.setenv("PRALINE_MXU_PRECISION", "highest")
-    got_hi = align_tracksets_batched(
-        pairs, mats, w, (11, 1), "global", traceback=True,
-        bucket_sizes=(29,), batch_pairs=8,
-    )
-    for a, b in zip(got_auto, got_hi):
-        assert a.score == b.score
-        np.testing.assert_array_equal(a.cols_x, b.cols_x)
-        np.testing.assert_array_equal(a.cols_y, b.cols_y)
